@@ -12,7 +12,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import ezpz_tpu as ez
+import ezpz_jax as ez
 
 
 def main() -> None:

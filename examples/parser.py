@@ -14,7 +14,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ezpz_tpu.textual import Problem
+from ezpz_jax.textual import Problem
 
 FILE = """\
 # constraints

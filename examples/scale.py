@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""TPU-native scale demo: fleets of independent sketches and one coupled
+"""Scale demo: fleets of independent sketches and one coupled
 system — the two capabilities beyond the reference's single-solve API.
 
     python examples/scale.py
@@ -8,7 +8,7 @@ system — the two capabilities beyond the reference's single-solve API.
    per-sketch distance) solved in ONE vmapped, jit-compiled call.
 2. A COUPLED system: a chain of vertical lines tied together by
    lines_equal_length — no block-diagonal decomposition exists, so it
-   runs through the partitioned-Schur solver (the TPU answer to the
+   runs through the partitioned-Schur solver (the batched answer to the
    reference's sparse LLT).
 """
 
@@ -23,10 +23,10 @@ import numpy as np
 def fleet() -> None:
     import jax.numpy as jnp
 
-    from ezpz_tpu import Constraint, DatumPoint
-    from ezpz_tpu.batch import BatchSolver
-    from ezpz_tpu.config import Config
-    from ezpz_tpu.models.compiled import compile_system
+    from ezpz_jax import Constraint, DatumPoint
+    from ezpz_jax.batch import BatchSolver
+    from ezpz_jax.config import Config
+    from ezpz_jax.models.compiled import compile_system
 
     p, q = DatumPoint(0, 1), DatumPoint(2, 3)
     system = compile_system(
@@ -56,8 +56,8 @@ def fleet() -> None:
 
 
 def coupled() -> None:
-    from ezpz_tpu import Constraint, DatumLineSegment, DatumPoint
-    from ezpz_tpu.parallel import BlockSchurSolver
+    from ezpz_jax import Constraint, DatumLineSegment, DatumPoint
+    from ezpz_jax.parallel import BlockSchurSolver
 
     n_lines = 40
     constraints = []

@@ -11,20 +11,20 @@ test-fast:
 
 # Static checks: byte-compile everything and verify the test collection.
 lint:
-    python -m compileall -q ezpz_tpu tests benches tools bench.py __graft_entry__.py
+    python -m compileall -q ezpz_jax tests benches tools bench.py __graft_entry__.py
     python -m pytest tests/ -q --collect-only > /dev/null
 
 # Runnable-docs check (the analog of `cargo test --doc`). The repo-root
 # conftest.py pins the CPU backend for these.
 doctest:
     python -m pytest --doctest-modules \
-        ezpz_tpu/config.py ezpz_tpu/utils/ids.py ezpz_tpu/api.py \
-        ezpz_tpu/batch.py ezpz_tpu/constraints.py ezpz_tpu/dof.py \
-        ezpz_tpu/serve.py ezpz_tpu/textual/problem.py \
-        ezpz_tpu/parallel/fleet.py ezpz_tpu/parallel/schur.py \
-        ezpz_tpu/parallel/block_schur.py -q
+        ezpz_jax/config.py ezpz_jax/utils/ids.py ezpz_jax/api.py \
+        ezpz_jax/batch.py ezpz_jax/constraints.py ezpz_jax/dof.py \
+        ezpz_jax/serve.py ezpz_jax/textual/problem.py \
+        ezpz_jax/parallel/fleet.py ezpz_jax/parallel/schur.py \
+        ezpz_jax/parallel/block_schur.py -q
 
-# Headline benchmark (one JSON line; runs on the TPU when available).
+# Headline benchmark (one JSON line; runs on whatever device JAX picks).
 bench:
     python bench.py
 
@@ -54,7 +54,7 @@ fuzz:
     #!/usr/bin/env bash
     set -u
     for i in $(seq 1 20); do
-        EZPZ_TPU_FUZZ_EXAMPLES=100 EZPZ_TPU_NO_CACHE=1 \
+        EZPZ_FUZZ_EXAMPLES=100 EZPZ_NO_CACHE=1 \
             python -m pytest tests/test_fuzz.py -q
         rc=$?
         if [ $rc -eq 1 ]; then echo "fuzz FAILURE in chunk $i"; exit 1; fi
@@ -62,7 +62,7 @@ fuzz:
     done
     echo "fuzz: 20 chunks complete"
 
-# Line coverage over ezpz_tpu/ (the llvm-cov/codecov analog) — homegrown
+# Line coverage over ezpz_jax/ (the llvm-cov/codecov analog) — homegrown
 # sys.monitoring-based tool; no coverage package ships in this image.
 coverage *ARGS="tests/ -q":
     python tools/coverage.py --json coverage.json {{ARGS}}
@@ -73,28 +73,22 @@ coverage *ARGS="tests/ -q":
 #
 # This recipe is the quick SAMPLED pass. The precision-critical modules
 # were run IN FULL in round 3 — raw kill rates before survivor-driven
-# tests: ops/ds.py 127/170 (75%), parallel/block_schur.py 54/64 (84%,
-# second run), models/compiled.py 8/22 (36%), textual/executor.py 41/47
-# (87%), solver.py 41/64 across two segments (60/60 non-equivalent after
-# the new tests), ops/kernels.py 22/32 sampled (31/31 non-equivalent
-# after); after the new tests every NON-EQUIVALENT mutant is killed
-# (hand-confirmed per survivor). Protocol, killer tests, and the
-# equivalent-survivor adjudication: docs/MUTATION.md. Round 4 mutated
-# the new Pallas planning/gate region in full with `--lines` (34
-# mutants, verification re-run 33/34 killed, the survivor provably
-# equivalent — docs/MUTATION.md "Round-4"). Round 5 mutated the new
-# banded tier and planner in full with `--lines`: ops/banded.py
-# plan/solve 10/10, pallas_fleet etree fill 18/18, nested-dissection
-# region 25/32 with the 7 survivors adjudicated equivalent
-# (heuristic-choice knobs — docs/MUTATION.md "Round 5"). Full runs
+# tests: parallel/block_schur.py 54/64 (84%, second run),
+# models/compiled.py 8/22 (36%), textual/executor.py 41/47 (87%),
+# solver.py 41/64 across two segments (60/60 non-equivalent after the new
+# tests), ops/kernels.py 22/32 sampled (31/31 non-equivalent after);
+# after the new tests every NON-EQUIVALENT mutant is killed
+# (hand-confirmed per survivor). Round 5 mutated the banded tier in full
+# with `--lines`: ops/banded.py plan/solve 10/10. Protocol, killer tests,
+# and the equivalent-survivor adjudication: docs/MUTATION.md. Full runs
 # mutate files in place: run them in a disposable copy of the repo,
 # never the live tree (see mutants-full).
 mutants:
-    python tools/mutate.py ezpz_tpu/utils/warnings.py -- tests/test_warnings_lint.py -q
-    python tools/mutate.py ezpz_tpu/solver.py --sample 40 -- \
+    python tools/mutate.py ezpz_jax/utils/warnings.py -- tests/test_warnings_lint.py -q
+    python tools/mutate.py ezpz_jax/solver.py --sample 40 -- \
         tests/test_solver_edges.py tests/test_cg.py tests/test_mixed_precision.py \
         tests/test_golden_fixtures.py tests/test_api.py -q
-    python tools/mutate.py ezpz_tpu/ops/kernels.py --sample 40 -- \
+    python tools/mutate.py ezpz_jax/ops/kernels.py --sample 40 -- \
         tests/test_properties.py tests/test_properties_families.py \
         tests/test_golden_fixtures.py -q
 
@@ -104,26 +98,11 @@ mutants:
 mutants-full:
     rm -rf /tmp/ezpz_mutfull && mkdir -p /tmp/ezpz_mutfull
     tar cf - --exclude .git --exclude __pycache__ --exclude .jax_cache . | tar xf - -C /tmp/ezpz_mutfull
-    # NOTE: -k expressions also match the MODULE name (test_ds_fused), so
-    # select the fast DS-level tests by explicit node id.
-    cd /tmp/ezpz_mutfull && python tools/mutate.py ezpz_tpu/ops/ds.py -- \
-        tests/test_ds_fused.py::test_ds_add_mul_sqrt_accuracy \
-        tests/test_ds_fused.py::test_ds_sincos_multi_revolution \
-        tests/test_ds_fused.py::test_ds_sincos_reduced_range_extremes \
-        tests/test_ds_fused.py::test_ds_degeneracy_threshold_boundary \
-        tests/test_ds_fused.py::test_ds_point_line_distance_deg_threshold_window \
-        tests/test_ds_fused.py::test_ds_symmetric_deg_threshold_window \
-        tests/test_ds_fused.py::test_ds_distance_kernel_large_coordinates \
-        tests/test_ds_fused.py::test_ds_kernels_match_f64_kernels \
-        tests/test_ds_fused.py::test_ds_symmetric_degenerate_nonzero_matches_f64_kernel \
-        tests/test_ds_fused.py::test_ccw_angle_less_matches_atan2 \
-        tests/test_ds_fused.py::test_all_kernels_have_ds_variants \
-        -x -q
-    cd /tmp/ezpz_mutfull && python tools/mutate.py ezpz_tpu/parallel/block_schur.py -- \
+    cd /tmp/ezpz_mutfull && python tools/mutate.py ezpz_jax/parallel/block_schur.py -- \
         tests/test_block_schur.py -x -q
-    cd /tmp/ezpz_mutfull && python tools/mutate.py ezpz_tpu/models/compiled.py -- \
+    cd /tmp/ezpz_mutfull && python tools/mutate.py ezpz_jax/models/compiled.py -- \
         tests/test_oracle_scipy.py tests/test_golden_fixtures.py -x -q
-    cd /tmp/ezpz_mutfull && python tools/mutate.py ezpz_tpu/textual/executor.py -- \
+    cd /tmp/ezpz_mutfull && python tools/mutate.py ezpz_jax/textual/executor.py -- \
         tests/test_native_parser.py tests/test_golden_fixtures.py -x -q
 
 # Quick fuzz sanity (the CI `fuzz-check` analog).
@@ -136,13 +115,8 @@ regen-viz-baselines:
 
 # Capture a jax.profiler trace of the headline bench into ./profile/.
 profile:
-    EZPZ_TPU_PROFILE_DIR=profile python bench.py
+    EZPZ_PROFILE_DIR=profile python bench.py
 
 # Build the native C++ extensions (fast parser + decomposition) in-place.
 native:
-    python -c "from ezpz_tpu.native import build; print(build('fastparse', verbose=True)); print(build('fastdecomp', verbose=True))"
-
-# The past-64-instance fused-kernel equivalence test (interpret mode,
-# ~10-30 min; passed 2026-08-20). Real-chip evidence: MIDSIZE_r04.json.
-fused-past64:
-    EZPZ_TPU_RUN_SLOW_FUSED=1 python -m pytest tests/test_ds_fused.py::test_fused_past64_chain_matches_mixed_path -q
+    python -c "from ezpz_jax.native import build; print(build('fastparse', verbose=True)); print(build('fastdecomp', verbose=True))"

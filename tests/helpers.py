@@ -8,8 +8,8 @@ EPSILON = 1e-4
 
 
 def run(test_case, config=None):
-    from ezpz_tpu.config import Config
-    from ezpz_tpu.textual import Problem
+    from ezpz_jax.config import Config
+    from ezpz_jax.textual import Problem
 
     txt = open(os.path.join(CASES_DIR, test_case, "problem.md")).read()
     problem = Problem.from_str(txt)

@@ -6,8 +6,8 @@ import math
 
 import pytest
 
-import ezpz_tpu as ez
-from ezpz_tpu import (
+import ezpz_jax as ez
+from ezpz_jax import (
     Angle,
     AngleKind,
     CircleSide,
@@ -23,7 +23,7 @@ from ezpz_tpu import (
     IdGenerator,
     LineSide,
 )
-from ezpz_tpu.utils.warnings import WarningKind
+from ezpz_jax.utils.warnings import WarningKind
 
 from .helpers import assert_nearly_eq
 
@@ -470,7 +470,7 @@ q roughly (5, 6)
 r roughly (3, 4)
 s roughly (5, 6)
 """
-    from ezpz_tpu.textual import Problem
+    from ezpz_jax.textual import Problem
 
     solved = Problem.from_str(txt).to_constraint_system().solve()
     assert solved.warnings
@@ -491,8 +491,8 @@ def test_time_resolves_timing_invariants():
     import inspect
     import time as _time
 
-    import ezpz_tpu as ez
-    from ezpz_tpu.api import time_resolves
+    import ezpz_jax as ez
+    from ezpz_jax.api import time_resolves
 
     ids = ez.IdGenerator()
     p = ez.DatumPoint.new(ids)

@@ -1,4 +1,4 @@
-"""Public-API stability snapshot — the TPU-native analog of the
+"""Public-API stability snapshot — the analog of the
 reference's semver-checks CI job (`/root/reference/.github/workflows/
 CI.yml`, cargo-semver-checks): the exported surface and the signatures
 of the two entry points are pinned, so an accidental removal / rename /
@@ -10,7 +10,7 @@ the break in CHANGELOG.md (that is the semver bump).
 
 import inspect
 
-import ezpz_tpu
+import ezpz_jax
 
 
 # The v0 public surface, frozen. Additions are allowed (append here);
@@ -67,17 +67,17 @@ CONSTRAINT_CONSTRUCTORS = [
 
 
 def test_public_surface_is_stable():
-    assert sorted(ezpz_tpu.__all__) == sorted(PUBLIC_SURFACE)
+    assert sorted(ezpz_jax.__all__) == sorted(PUBLIC_SURFACE)
     for name in PUBLIC_SURFACE:
-        assert hasattr(ezpz_tpu, name), f"__all__ exports missing {name}"
+        assert hasattr(ezpz_jax, name), f"__all__ exports missing {name}"
 
 
 def test_solve_signatures_are_stable():
     """The entry-point parameter lists are part of the contract
     (`ezpz/src/lib.rs:80-87,134-144`)."""
-    sig = inspect.signature(ezpz_tpu.solve)
+    sig = inspect.signature(ezpz_jax.solve)
     assert list(sig.parameters) == ["reqs", "initial_guesses", "config"]
-    sig_a = inspect.signature(ezpz_tpu.solve_analysis)
+    sig_a = inspect.signature(ezpz_jax.solve_analysis)
     assert list(sig_a.parameters) == ["reqs", "initial_guesses", "config"]
     # config stays optional on both
     assert sig.parameters["config"].default is not inspect.Parameter.empty
@@ -86,14 +86,14 @@ def test_solve_signatures_are_stable():
 
 def test_constraint_constructors_are_stable():
     for name in CONSTRAINT_CONSTRUCTORS:
-        assert hasattr(ezpz_tpu.Constraint, name), name
-        assert callable(getattr(ezpz_tpu.Constraint, name)), name
+        assert hasattr(ezpz_jax.Constraint, name), name
+        assert callable(getattr(ezpz_jax.Constraint, name)), name
 
 
 def test_config_fields_are_stable():
     """The reference Config surface (solver.rs:33-81) + documented
     extensions must keep their builder fields."""
-    c = ezpz_tpu.Config()
+    c = ezpz_jax.Config()
     for field in ("max_iterations", "residual_tolerance",
                   "step_tolerance", "initial_lambda"):
         assert hasattr(c, field), field
@@ -103,16 +103,16 @@ def test_outcome_fields_are_stable():
     """SolveOutcome's reported fields (solve_outcome.rs:12-26)."""
     import numpy as np
 
-    p, q = ezpz_tpu.DatumPoint(0, 1), ezpz_tpu.DatumPoint(2, 3)
+    p, q = ezpz_jax.DatumPoint(0, 1), ezpz_jax.DatumPoint(2, 3)
     reqs = [
-        ezpz_tpu.ConstraintRequest.highest_priority(
-            ezpz_tpu.Constraint.Fixed(0, 0.0)),
-        ezpz_tpu.ConstraintRequest.highest_priority(
-            ezpz_tpu.Constraint.Fixed(1, 0.0)),
-        ezpz_tpu.ConstraintRequest.highest_priority(
-            ezpz_tpu.Constraint.Distance(p, q, 5.0)),
+        ezpz_jax.ConstraintRequest.highest_priority(
+            ezpz_jax.Constraint.Fixed(0, 0.0)),
+        ezpz_jax.ConstraintRequest.highest_priority(
+            ezpz_jax.Constraint.Fixed(1, 0.0)),
+        ezpz_jax.ConstraintRequest.highest_priority(
+            ezpz_jax.Constraint.Distance(p, q, 5.0)),
     ]
-    out = ezpz_tpu.solve(
+    out = ezpz_jax.solve(
         reqs, [(0, 0.0), (1, 0.0), (2, 3.1), (3, 3.9)])
     for field in ("final_values", "unsatisfied", "iterations",
                   "converged", "priority_solved", "warnings"):

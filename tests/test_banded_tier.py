@@ -1,12 +1,11 @@
 """The banded normal-equation tier (ops/banded.plan_band/make_banded_spd).
 
-Round-4 VERDICT weak #3: past the Pallas kernels' VMEM ceiling, batched
-mid-size solves fell onto XLA's DENSE serialized Cholesky — a 3,000x
-cliff for a 146-var chain whose RCM band is only 7 wide. The reference
-never had that cliff because faer's sparse LLT fill-in on a banded
+Without this tier, batched mid-size solves fall onto a DENSE Cholesky —
+cubic in n for a 146-var chain whose RCM band is only 7 wide. The
+reference never pays that because faer's sparse LLT fill-in on a banded
 matrix IS the band (``ezpz/src/solver.rs:270,289-300``,
-``newton.rs:87-102``); this tier is the TPU-shaped equivalent: permute
-to the narrowest identity/RCM band, factor with the O(n*bw^2) scan.
+``newton.rs:87-102``); this tier is the batched equivalent: permute to
+the narrowest identity/RCM band, factor with the O(n*bw^2) scan.
 """
 
 import sys
@@ -16,20 +15,90 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import ezpz_tpu  # noqa: F401
-from ezpz_tpu.batch import BatchSolver, _pick_spd
-from ezpz_tpu.config import Config
-from ezpz_tpu.constraints import Constraint
-from ezpz_tpu.datatypes import DatumPoint
-from ezpz_tpu.models.compiled import compile_system
-from ezpz_tpu.ops.banded import BANDED_MAX_BW, make_banded_spd, plan_band
-from ezpz_tpu.ops.linalg import spd_solve, spd_solve_batched
+import ezpz_jax  # noqa: F401
+from ezpz_jax.batch import BatchSolver, _pick_spd
+from ezpz_jax.config import Config
+from ezpz_jax.constraints import Constraint
+from ezpz_jax.datatypes import DatumPoint
+from ezpz_jax.models.compiled import compile_system
+from ezpz_jax.constraints import KernelInstance
+from ezpz_jax.ops.banded import (BANDED_MAX_BW, _jtj_pattern, _rcm_order,
+                                 make_banded_spd, plan_band)
+from ezpz_jax.ops.linalg import spd_solve, spd_solve_batched
 
 sys.path.insert(0, os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benches"))
 from midsize_bench import rect_chain, rect_grid  # noqa: E402
 
-from .test_ds_fused import _pars_for
+
+
+def _pars_for(system, B):
+    return tuple(
+        jnp.asarray(np.tile(np.asarray(b.par), (B, 1, 1)))
+        for b in system.blocks
+    )
+
+
+def _shuffled_rect_chain(R: int, seed: int = 5):
+    """rect_chain(R) with the VARIABLE NUMBERING shuffled (same constraint
+    graph): the banded structure survives only through an elimination
+    reordering."""
+    cons, x0 = rect_chain(R)
+    perm = np.random.default_rng(seed).permutation(len(x0))
+
+    def relabel(c):
+        return _Relabeled([
+            KernelInstance(i.kernel, tuple(int(perm[v]) for v in i.var_ids),
+                           i.params)
+            for i in c.lower()])
+
+    x0_s = np.zeros_like(x0)
+    x0_s[perm] = x0
+    return [relabel(c) for c in cons], x0_s
+
+
+class _Relabeled:
+    """Pre-lowered constraint (the ``.lower()`` protocol compile_system
+    consumes)."""
+
+    def __init__(self, instances):
+        self.instances = instances
+
+    def lower(self):
+        return list(self.instances)
+
+
+def _bandwidth(pat, order=None):
+    if order is None:
+        return max(i - j for (i, j) in pat)
+    inv = np.empty(len(order), dtype=int)
+    inv[np.asarray(order)] = np.arange(len(order))
+    return max(abs(int(inv[i]) - int(inv[j])) for (i, j) in pat)
+
+
+def test_rcm_order_tames_shuffled_numbering():
+    """A shuffled chain has a banded GRAPH but a wide numbering: the RCM
+    ordering must bring its band back to the well-ordered chain's RCM
+    band, and plan_band must pick it (a permutation, not identity)."""
+    cons, x0 = rect_chain(6)
+    sys_ord = compile_system(cons, n_vars=len(x0))
+    cons_s, x0_s = _shuffled_rect_chain(6)
+    sys_shuf = compile_system(cons_s, n_vars=len(x0_s))
+    n = sys_ord.n_vars
+
+    def pattern(system):
+        return _jtj_pattern([(None, [int(j) for j in b.idx[i]])
+                             for b in system.blocks
+                             for i in range(b.idx.shape[0])], n)
+
+    pat_ord, pat_shuf = pattern(sys_ord), pattern(sys_shuf)
+    rcm_ord = _rcm_order(pat_ord, n)
+    rcm_shuf = _rcm_order(pat_shuf, n)
+    assert sorted(rcm_shuf) == list(range(n))  # a permutation
+    assert _bandwidth(pat_shuf, rcm_shuf) == _bandwidth(pat_ord, rcm_ord)
+    assert _bandwidth(pat_shuf, rcm_shuf) < _bandwidth(pat_shuf) / 2
+    perm, bw = plan_band(sys_shuf)
+    assert perm is not None and bw == _bandwidth(pat_shuf, rcm_shuf)
 
 
 def test_plan_band_chain_narrow_grid_wider_dense_none():
@@ -93,9 +162,8 @@ def test_banded_spd_nonspd_fails_cleanly():
 
 
 def test_pick_spd_tiers():
-    """Narrow-ordering topologies take the band tier from n > 24 (it
-    beats the column-sweep tier 5-9x across the mid-size range, TUNING
-    measurement table); mid-size with NO narrow ordering keeps the
+    """Narrow-ordering topologies take the band tier from n > 24 (its cost
+    is linear in n); mid-size with NO narrow ordering keeps the
     column-sweep tier; large with no narrow ordering falls to dense."""
     for R in (8, 24):  # 50 and 146 vars, both band-narrow
         cons, x0 = rect_chain(R)
@@ -113,7 +181,7 @@ def test_pick_spd_tiers():
             DatumPoint(int(2 * a), int(2 * a + 1)),
             DatumPoint(int(2 * b), int(2 * b + 1)), 1.0))
     smid = compile_system(mcons, n_vars=50)
-    from ezpz_tpu.ops.banded import plan_band as _pb
+    from ezpz_jax.ops.banded import plan_band as _pb
     if _pb(smid) is None:  # the random graph must actually be wide
         assert _pick_spd(smid) is spd_solve_batched
 
@@ -153,7 +221,7 @@ def test_pick_spd_unrolled_boundary_exact():
     Crout (the measured-fastest tier at that size) and only 25+ routes
     to the band planner (mutation-found: `>` -> `>=` silently moved
     24-var chains onto the scan tier)."""
-    from ezpz_tpu.ops.linalg import UNROLL_MAX_N
+    from ezpz_jax.ops.linalg import UNROLL_MAX_N
 
     assert UNROLL_MAX_N == 24
     pts24 = [DatumPoint(2 * i, 2 * i + 1) for i in range(12)]

@@ -10,13 +10,13 @@ import pytest
 
 import jax.numpy as jnp
 
-import ezpz_tpu as ez
-from ezpz_tpu.batch import BatchSolver
-from ezpz_tpu.config import Config
-from ezpz_tpu.constraints import Constraint, ConstraintRequest
-from ezpz_tpu.datatypes import DatumPoint
-from ezpz_tpu.models.blocks import BlockSolver, connected_components
-from ezpz_tpu.models.compiled import compile_system
+import ezpz_jax as ez
+from ezpz_jax.batch import BatchSolver
+from ezpz_jax.config import Config
+from ezpz_jax.constraints import Constraint, ConstraintRequest
+from ezpz_jax.datatypes import DatumPoint
+from ezpz_jax.models.blocks import BlockSolver, connected_components
+from ezpz_jax.models.compiled import compile_system
 
 from .helpers import CASES_DIR
 
@@ -42,7 +42,7 @@ def test_batch_equals_loop_of_singles():
     solver = BatchSolver(system, Config())
     batch = solver.solve(jnp.asarray(x0))
 
-    from ezpz_tpu.solver import solve_lm
+    from ezpz_jax.solver import solve_lm
 
     for i in range(B):
         single = solve_lm(system, jnp.asarray(x0[i]), 35, 1e-8, 1e-12, 1e-9)
@@ -93,7 +93,7 @@ def test_block_solve_matches_global_solve():
     """Decomposed solve == monolithic solve on a separable system."""
     import os
 
-    from ezpz_tpu.textual import Problem
+    from ezpz_jax.textual import Problem
 
     txt = open(os.path.join(CASES_DIR, "two_rectangles", "problem.md")).read()
     sys_ = Problem.from_str(txt).to_constraint_system()
@@ -114,7 +114,7 @@ def test_block_solve_matches_global_solve():
 def test_massive_parallel_system_blocks():
     import os
 
-    from ezpz_tpu.textual import Problem
+    from ezpz_jax.textual import Problem
 
     txt = open(os.path.join(CASES_DIR, "massive_parallel_system", "problem.md")).read()
     sys_ = Problem.from_str(txt).to_constraint_system()

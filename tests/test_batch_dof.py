@@ -8,13 +8,13 @@ import pytest
 
 import jax.numpy as jnp
 
-from ezpz_tpu.batch import BatchSolver
-from ezpz_tpu.config import Config
-from ezpz_tpu.constraints import Constraint
-from ezpz_tpu.datatypes import DatumPoint
-from ezpz_tpu.dof import freedom_analysis, freedom_analysis_batch
-from ezpz_tpu.models.compiled import compile_system
-from ezpz_tpu.utils.errors import EmptySystemNotAllowed
+from ezpz_jax.batch import BatchSolver
+from ezpz_jax.config import Config
+from ezpz_jax.constraints import Constraint
+from ezpz_jax.datatypes import DatumPoint
+from ezpz_jax.dof import freedom_analysis, freedom_analysis_batch
+from ezpz_jax.models.compiled import compile_system
+from ezpz_jax.utils.errors import EmptySystemNotAllowed
 
 
 def _underconstrained_system():
@@ -111,13 +111,13 @@ def test_dof_rank_tolerance_decade_and_relative():
     40-47): a 3e-8 singular value survives at scale 1 (decade pin), a 3e-9
     one does not, and at scale 100 an absolute 1e-8 direction is
     rank-deficient (relative, not absolute — mutation-found)."""
-    from ezpz_tpu.dof import freedom_analysis
+    from ezpz_jax.dof import freedom_analysis
 
     assert freedom_analysis(np.diag([1.0, 3e-8])).underconstrained() == []
     assert freedom_analysis(np.diag([1.0, 3e-9])).underconstrained() == [1]
     assert freedom_analysis(np.diag([100.0, 1e-8])).underconstrained() == [1]
     # Same relative-tolerance semantics through the batched device path.
-    from ezpz_tpu.dof import freedom_analysis_batch
+    from ezpz_jax.dof import freedom_analysis_batch
 
     assert [a.underconstrained() for a in
             freedom_analysis_batch(np.diag([100.0, 1e-8])[None])] == [[1]]
@@ -128,7 +128,7 @@ def test_dof_participation_window_both_paths():
     (find_dof.rs:81-104): a variable entering the nullspace with relative
     magnitude 3e-3 is underconstrained, at 3e-4 it is not — through BOTH
     the host path and the batched device path (mutation-found decade)."""
-    from ezpz_tpu.dof import freedom_analysis, freedom_analysis_batch
+    from ezpz_jax.dof import freedom_analysis, freedom_analysis_batch
 
     row_in = np.asarray([[1.0, 3e-3, 0.0]])
     row_out = np.asarray([[1.0, 3e-4, 0.0]])
@@ -145,7 +145,7 @@ def test_dof_participation_tolerance_is_relative():
     1/3 (not 1) for a nullspace direction spread over a 3-variable chain:
     a fourth variable coupled at relative 1.7e-3 must still be listed
     (an inverted scaling, 1e-3 / max, would cut it — mutation-found)."""
-    from ezpz_tpu.dof import freedom_analysis
+    from ezpz_jax.dof import freedom_analysis
 
     eps = 1.7e-3
     j = np.asarray([
@@ -161,7 +161,7 @@ def test_dof_zero_jacobian_fully_free_both_paths():
     leaves every variable underconstrained. Pins the strict/inclusive
     orientation of the rank comparisons at sigma == tol == 0 exactly
     (mutation-found: host `s > tol` and device `s_pad <= tol`)."""
-    from ezpz_tpu.dof import freedom_analysis, freedom_analysis_batch
+    from ezpz_jax.dof import freedom_analysis, freedom_analysis_batch
 
     assert freedom_analysis(np.zeros((2, 3))).underconstrained() == [0, 1, 2]
     assert [a.underconstrained() for a in

@@ -66,17 +66,3 @@ def test_midsize_bench_runs_and_routes_midsize_tier():
     assert rec["n_vars"] == 26
     assert rec["converged"] and rec["satisfied"]
     assert rec["residual_f64_max"] <= 1e-8
-
-
-def test_scaling_artifact_is_current():
-    """SCALING_r02.json (the committed weak-scaling artifact) must match the
-    bench's output schema, so the recorded curve can't silently bitrot."""
-    path = os.path.join(ROOT, "SCALING_r02.json")
-    rec = json.load(open(path))
-    assert rec["metric"] == "weak_scaling_efficiency"
-    assert rec["devices"] == [1, 2, 4, 8]
-    for key in ("fleet", "schur", "fleet_efficiency", "schur_efficiency",
-                "host_cores", "faked_mesh", "backend"):
-        assert key in rec, key
-    iters = {d: r["iterations"] for d, r in rec["schur"].items()}
-    assert len(set(iters.values())) == 1, iters

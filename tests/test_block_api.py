@@ -2,7 +2,7 @@
 models.blocks.BlockProgram).
 
 Sketches with >= _DECOMPOSE_MIN independent components route through one
-vmapped LM per topology bucket — the TPU-first shape of the component
+vmapped LM per topology bucket — the batched shape of the component
 sparsity the reference's sparse-LLT Newton step (newton.rs:15) exploits
 implicitly — returning the same packed outcome layout as the monolithic
 jitted solver. These tests pin path selection, outcome equivalence, and
@@ -10,11 +10,11 @@ the per-constraint scatter of satisfaction/degeneracy."""
 
 import numpy as np
 
-import ezpz_tpu as ez
-from ezpz_tpu.api import _get_system_and_solver
-from ezpz_tpu.config import Config
-from ezpz_tpu.models.blocks import BlockProgram
-from ezpz_tpu.models.compiled import CompiledSystem
+import ezpz_jax as ez
+from ezpz_jax.api import _get_system_and_solver
+from ezpz_jax.config import Config
+from ezpz_jax.models.blocks import BlockProgram
+from ezpz_jax.models.compiled import CompiledSystem
 
 
 def _fleet(K=12, inconsistent_at=None, degenerate_at=None):
@@ -55,16 +55,16 @@ def test_path_selection_threshold(monkeypatch):
     constraints = [r.constraint for r in reqs]
     weights = [1.0] * len(constraints)
 
-    monkeypatch.setenv("EZPZ_TPU_DECOMPOSE_MIN", "8")
+    monkeypatch.setenv("EZPZ_DECOMPOSE_MIN", "8")
     system, _ = _get_system_and_solver(constraints, weights, len(guesses), 50)
     assert isinstance(system, BlockProgram)
     assert system.n_components == 12
 
-    monkeypatch.setenv("EZPZ_TPU_DECOMPOSE_MIN", "13")
+    monkeypatch.setenv("EZPZ_DECOMPOSE_MIN", "13")
     system, _ = _get_system_and_solver(constraints, weights, len(guesses), 50)
     assert isinstance(system, CompiledSystem)
 
-    monkeypatch.setenv("EZPZ_TPU_DECOMPOSE_MIN", "0")
+    monkeypatch.setenv("EZPZ_DECOMPOSE_MIN", "0")
     system, _ = _get_system_and_solver(constraints, weights, len(guesses), 50)
     assert isinstance(system, CompiledSystem)
 
@@ -75,9 +75,9 @@ def test_block_path_matches_monolithic(monkeypatch):
     tolerance, identical freedom analysis."""
     reqs, guesses = _fleet(K=12)
 
-    monkeypatch.setenv("EZPZ_TPU_DECOMPOSE_MIN", "0")
+    monkeypatch.setenv("EZPZ_DECOMPOSE_MIN", "0")
     mono = ez.solve_analysis(reqs, guesses)
-    monkeypatch.setenv("EZPZ_TPU_DECOMPOSE_MIN", "8")
+    monkeypatch.setenv("EZPZ_DECOMPOSE_MIN", "8")
     blk = ez.solve_analysis(reqs, guesses)
 
     assert blk.outcome.converged and mono.outcome.converged
@@ -95,7 +95,7 @@ def test_block_path_scatters_unsatisfied_to_the_right_block(monkeypatch):
     """One unsatisfiable block: exactly its contradictory pair is reported
     unsatisfied, every other block's constraints stay satisfied — the
     cid_index scatter, not just an all-reduce."""
-    monkeypatch.setenv("EZPZ_TPU_DECOMPOSE_MIN", "8")
+    monkeypatch.setenv("EZPZ_DECOMPOSE_MIN", "8")
     reqs, guesses = _fleet(K=12, inconsistent_at=5)
     out = ez.solve(reqs, guesses)
     # Block 5 carries 4 requests: indices 15..18 (3 per earlier block).
@@ -109,9 +109,9 @@ def test_block_path_scatters_unsatisfied_to_the_right_block(monkeypatch):
 def test_block_path_scatters_degenerate_warning(monkeypatch):
     """A zero-length mirror line in one block produces that block's
     DEGENERATE warning through the decomposed path."""
-    from ezpz_tpu.utils.warnings import WarningKind
+    from ezpz_jax.utils.warnings import WarningKind
 
-    monkeypatch.setenv("EZPZ_TPU_DECOMPOSE_MIN", "8")
+    monkeypatch.setenv("EZPZ_DECOMPOSE_MIN", "8")
     reqs, guesses = _fleet(K=12, degenerate_at=3)
     out = ez.solve(reqs, guesses)
     flagged = [w.about_constraint for w in out.warnings
@@ -129,12 +129,12 @@ def test_block_path_keeps_unreferenced_guesses(monkeypatch):
     guesses = guesses + [(free_id, 7.25)]
     for env in ("0", "4"):
         import os
-        os.environ["EZPZ_TPU_DECOMPOSE_MIN"] = env
+        os.environ["EZPZ_DECOMPOSE_MIN"] = env
         try:
             out = ez.solve(reqs, guesses)
             assert out.final_values[free_id] == 7.25
         finally:
-            os.environ.pop("EZPZ_TPU_DECOMPOSE_MIN", None)
+            os.environ.pop("EZPZ_DECOMPOSE_MIN", None)
 
 
 def test_block_analysis_matches_monolithic_global_tolerances(monkeypatch):
@@ -159,9 +159,9 @@ def test_block_analysis_matches_monolithic_global_tolerances(monkeypatch):
     free_id = len(guesses)
     guesses.append((free_id, 3.5))
 
-    monkeypatch.setenv("EZPZ_TPU_DECOMPOSE_MIN", "0")
+    monkeypatch.setenv("EZPZ_DECOMPOSE_MIN", "0")
     mono = ez.solve_analysis(reqs, guesses)
-    monkeypatch.setenv("EZPZ_TPU_DECOMPOSE_MIN", "4")
+    monkeypatch.setenv("EZPZ_DECOMPOSE_MIN", "4")
     blk = ez.solve_analysis(reqs, guesses)
 
     assert blk.analysis.underconstrained() == mono.analysis.underconstrained()
@@ -177,7 +177,7 @@ def test_block_path_mixed_precision(monkeypatch):
     _fleet blocks leave q on a circle, where the two precisions
     legitimately pick different points) so the solutions are unique and
     must coincide."""
-    monkeypatch.setenv("EZPZ_TPU_DECOMPOSE_MIN", "8")
+    monkeypatch.setenv("EZPZ_DECOMPOSE_MIN", "8")
     ids = ez.IdGenerator()
     reqs, guesses = [], []
     for k in range(12):
@@ -202,9 +202,9 @@ def test_decompose_threshold_default_and_equality(monkeypatch):
     applies, and the comparisons are INCLUSIVE: a sketch with exactly 32
     single-constraint components decomposes (mutation-found: the default
     constant and all three >= comparisons along the gate)."""
-    import ezpz_tpu.api as api
+    import ezpz_jax.api as api
 
-    monkeypatch.delenv("EZPZ_TPU_DECOMPOSE_MIN", raising=False)
+    monkeypatch.delenv("EZPZ_DECOMPOSE_MIN", raising=False)
     assert api._DECOMPOSE_MIN_DEFAULT == 32
     constraints = [ez.Constraint.Fixed(i, float(i)) for i in range(32)]
     weights = [1.0] * 32
@@ -219,7 +219,7 @@ def test_decompose_threshold_default_and_equality(monkeypatch):
 def test_solver_cache_respects_limit(monkeypatch):
     """The LRU eviction keeps the cache AT the limit, not one past it
     (mutation-found off-by-one in the eviction comparison)."""
-    import ezpz_tpu.api as api
+    import ezpz_jax.api as api
 
     assert api._SOLVER_CACHE_LIMIT == 256  # the documented working-set size
     monkeypatch.setattr(api, "_SOLVER_CACHE_LIMIT", 3)

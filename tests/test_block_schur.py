@@ -1,5 +1,5 @@
-"""BlockSchurSolver: single-chip partitioned Schur solves for *coupled*
-systems (the TPU answer to the reference's sparse LLT on one core,
+"""BlockSchurSolver: single-device partitioned Schur solves for *coupled*
+systems (the batched answer to the reference's sparse LLT on one core,
 ``ezpz/src/solver/newton.rs:87-102``). Correctness = exact agreement with
 the global dense solve_lm path on the same constraints.
 """
@@ -9,13 +9,13 @@ import pytest
 
 import jax.numpy as jnp
 
-import ezpz_tpu as ez
-from ezpz_tpu.config import Config
-from ezpz_tpu.constraints import Constraint
-from ezpz_tpu.datatypes import DatumPoint
-from ezpz_tpu.models.compiled import compile_system
-from ezpz_tpu.parallel import BlockSchurSolver
-from ezpz_tpu.solver import solve_lm
+import ezpz_jax as ez
+from ezpz_jax.config import Config
+from ezpz_jax.constraints import Constraint
+from ezpz_jax.datatypes import DatumPoint
+from ezpz_jax.models.compiled import compile_system
+from ezpz_jax.parallel import BlockSchurSolver
+from ezpz_jax.solver import solve_lm
 
 from .test_parallel import _coupled_chain_problem
 
@@ -113,7 +113,7 @@ def test_textual_coupled_fixture():
         [_sys.executable, os.path.join(here, "tools", "gen_massive.py"),
          "12", "coupled"],
         capture_output=True, text=True, check=True).stdout
-    from ezpz_tpu.textual import Problem
+    from ezpz_jax.textual import Problem
     cs = Problem.from_str(txt).to_constraint_system()
     constraints = [r.constraint for r in cs.constraints]
     x0 = np.zeros(len(cs.initial_guesses))
@@ -154,7 +154,7 @@ def test_cg_boundary_matches_dense():
         [_sys.executable, os.path.join(here, "tools", "gen_massive.py"),
          "24", "coupled"],
         capture_output=True, text=True, check=True).stdout
-    from ezpz_tpu.textual import Problem
+    from ezpz_jax.textual import Problem
     cs = Problem.from_str(txt).to_constraint_system()
     constraints = [r.constraint for r in cs.constraints]
     x0 = np.zeros(len(cs.initial_guesses))
@@ -185,7 +185,7 @@ def test_banded_boundary_matches_dense():
         [_sys.executable, os.path.join(here, "tools", "gen_massive.py"),
          "24", "coupled"],
         capture_output=True, text=True, check=True).stdout
-    from ezpz_tpu.textual import Problem
+    from ezpz_jax.textual import Problem
     cs = Problem.from_str(txt).to_constraint_system()
     constraints = [r.constraint for r in cs.constraints]
     x0 = np.zeros(len(cs.initial_guesses))
@@ -214,7 +214,7 @@ def test_banded_ops_against_dense():
     """ops/banded.py factor+solve agrees with a dense solve on random SPD
     banded matrices, flags non-SPD input, and batches under vmap."""
     import jax
-    from ezpz_tpu.ops.banded import banded_spd_solve, dense_to_band
+    from ezpz_jax.ops.banded import banded_spd_solve, dense_to_band
 
     rng = np.random.default_rng(7)
     for n, bw in [(9, 0), (13, 2), (33, 6)]:
@@ -260,7 +260,7 @@ def test_banded_exactly_singular_pivot_flags_failure():
     fail=False — defeating the failure->re-damp semantics (the
     reference's numeric-LLT-failure->raise-lambda branch in its LM
     loop). Kills the Gt->GtE mutant on that pivot check."""
-    from ezpz_tpu.ops.banded import banded_spd_solve, dense_to_band
+    from ezpz_jax.ops.banded import banded_spd_solve, dense_to_band
 
     A = np.ones((2, 2))
     x, fail = banded_spd_solve(dense_to_band(jnp.asarray(A), 1),
@@ -277,7 +277,7 @@ def test_banded_exactly_singular_pivot_flags_failure():
 
 def test_mixed_precision_uses_f32_jacobian_system():
     """The mixed-precision contract: precision='mixed' must lower the
-    Jacobian-side system to float32 (the whole point of the mode on TPU);
+    Jacobian-side system to float32 (the whole point of the mode);
     precision='f64' must not. Kills the system_j dtype-selection mutant."""
     constraints, x0 = _coupled_chain_problem()
     mix = BlockSchurSolver(constraints, len(x0), n_parts=4, precision="mixed")
@@ -365,7 +365,7 @@ def test_converges_from_large_initial_lambda(boundary_solver):
 def test_cg_option_actually_runs_cg(monkeypatch):
     """boundary_solver='cg' must dispatch to the PCG loop (not silently
     fall back to the dense branch). Probe by breaking _pcg."""
-    import ezpz_tpu.parallel.hier as hier_mod
+    import ezpz_jax.parallel.hier as hier_mod
 
     def boom(*a, **k):
         raise RuntimeError("pcg probe")
@@ -387,7 +387,7 @@ def test_resolve_boundary_solver_policy():
     """The structural auto policy (schur.resolve_boundary_solver): banded
     for thin bands, dense for small boundaries, CG for large non-chain
     couplings; explicit choices pass through untouched."""
-    from ezpz_tpu.parallel.schur import resolve_boundary_solver as r
+    from ezpz_jax.parallel.schur import resolve_boundary_solver as r
 
     assert r("auto", n_b=100, band_bw=5) == "banded"       # 4*6 <= 100
     assert r("auto", n_b=100, band_bw=40) == "dense"       # band too fat
@@ -505,7 +505,7 @@ def test_banded_option_actually_runs_banded(monkeypatch):
     and 'dense' must NOT: the band covers every Schur entry (all
     contributions are within-part blocks), so a swapped dispatch is
     value-invisible and only a path probe can pin it."""
-    import ezpz_tpu.ops.banded as banded_mod
+    import ezpz_jax.ops.banded as banded_mod
 
     def boom(*a, **k):
         raise RuntimeError("banded probe")

@@ -5,10 +5,10 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from ezpz_tpu.constraints import Constraint
-from ezpz_tpu.datatypes import DatumLineSegment, DatumPoint
-from ezpz_tpu.models.compiled import compile_system
-from ezpz_tpu.solver import solve_lm, solve_lm_cg
+from ezpz_jax.constraints import Constraint
+from ezpz_jax.datatypes import DatumLineSegment, DatumPoint
+from ezpz_jax.models.compiled import compile_system
+from ezpz_jax.solver import solve_lm, solve_lm_cg
 
 
 def _chain_system(n_pts=40):
@@ -59,7 +59,7 @@ def test_cg_warm_start_contract():
     the solution it stays there; started nearby it still converges to the
     same point. (The LM caller always passes zeros, so only a direct unit
     test can see the initial-residual sign — mutation-found.)"""
-    from ezpz_tpu.solver import _cg
+    from ezpz_jax.solver import _cg
 
     rng = np.random.default_rng(3)
     M = rng.standard_normal((4, 4))
@@ -84,7 +84,7 @@ def test_cg_krylov_efficiency():
     p = r + (rs_new/rs) p gets there — a corrupted recurrence (e.g. a
     sign flip, mutation-found) loses conjugacy and stalls far from the
     solution inside the same budget."""
-    from ezpz_tpu.solver import _cg
+    from ezpz_jax.solver import _cg
 
     rng = np.random.default_rng(5)
     M = rng.standard_normal((16, 16))
@@ -102,7 +102,7 @@ def test_cg_budget_contract():
     budget on a 16x16 system must NOT reach the solution (a corrupted
     counter, e.g. it-1, would loop to full convergence; an inclusive
     bound would run one extra step). Mutation-found."""
-    from ezpz_tpu.solver import _cg
+    from ezpz_jax.solver import _cg
 
     rng = np.random.default_rng(5)
     M = rng.standard_normal((16, 16))
@@ -123,7 +123,7 @@ def test_cg_damping_sign_matches_dense_at_high_lambda():
     makes the inner operator indefinite and the first heavily-damped step
     point the wrong way. Mutation-found (at the default lam = 1e-9 the
     sign is numerically invisible)."""
-    from ezpz_tpu.solver import solve_lm_cg
+    from ezpz_jax.solver import solve_lm_cg
 
     p, q = DatumPoint(0, 1), DatumPoint(2, 3)
     cs = [Constraint.Fixed(0, 0.0), Constraint.Fixed(1, 0.0),

@@ -1,5 +1,5 @@
 """Checkpoint/resume tests for the sharded Schur solver (SURVEY.md section 5:
-the TPU build's checkpointing niche — giant sharded solves)."""
+the accelerator build's checkpointing niche — giant sharded solves)."""
 
 import os
 
@@ -7,16 +7,16 @@ import numpy as np
 import jax
 from jax.sharding import Mesh
 
-import ezpz_tpu  # noqa: F401
-from ezpz_tpu.checkpoint import load_state, save_state, topology_fingerprint
-from ezpz_tpu.config import Config
-from ezpz_tpu.constraints import Constraint
-from ezpz_tpu.datatypes import DatumLineSegment, DatumPoint
-from ezpz_tpu.parallel import ShardedSchurSolver
+import ezpz_jax  # noqa: F401
+from ezpz_jax.checkpoint import load_state, save_state, topology_fingerprint
+from ezpz_jax.config import Config
+from ezpz_jax.constraints import Constraint
+from ezpz_jax.datatypes import DatumLineSegment, DatumPoint
+from ezpz_jax.parallel import ShardedSchurSolver
 
 
 def _chain(n_points):
-    from ezpz_tpu.fixtures import horizontal_chain
+    from ezpz_jax.fixtures import horizontal_chain
 
     return horizontal_chain(n_points, x_spacing=1.3, x_offset=0.21, y_offset=0.17)
 

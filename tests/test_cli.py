@@ -11,7 +11,7 @@ ENV = {**os.environ, "JAX_PLATFORMS_FORCE_CPU": "1"}
 
 def _run_cli(*args):
     return subprocess.run(
-        [sys.executable, "-m", "ezpz_tpu.cli", "--cpu", *args],
+        [sys.executable, "-m", "ezpz_jax.cli", "--cpu", *args],
         capture_output=True,
         text=True,
         cwd=os.path.dirname(os.path.dirname(__file__)),
@@ -42,7 +42,7 @@ def test_cli_arc_radius_with_points_and_png(tmp_path):
 def test_cli_stdin():
     txt = open(os.path.join(CASES_DIR, "tiny", "problem.md")).read()
     res = subprocess.run(
-        [sys.executable, "-m", "ezpz_tpu.cli", "--cpu", "-f", "-"],
+        [sys.executable, "-m", "ezpz_jax.cli", "--cpu", "-f", "-"],
         input=txt,
         capture_output=True,
         text=True,
@@ -55,7 +55,7 @@ def test_cli_stdin():
 
 def test_cli_parse_error():
     res = subprocess.run(
-        [sys.executable, "-m", "ezpz_tpu.cli", "--cpu", "-f", "-"],
+        [sys.executable, "-m", "ezpz_jax.cli", "--cpu", "-f", "-"],
         input="# constraints\nbogus(p)\n\n# guesses\np roughly (0,0)\n",
         capture_output=True,
         text=True,

@@ -6,7 +6,7 @@ import sys
 
 import numpy as np
 
-from ezpz_tpu import embed
+from ezpz_jax import embed
 
 
 def test_hello():
@@ -33,12 +33,12 @@ def test_benchmark_solves_dependent_rectangles():
 
 
 def test_dbg_jac_prints_jacobian():
-    """EZPZ_TPU_DBG_JAC=1 dumps the dense Jacobian each LM iteration
+    """EZPZ_DBG_JAC=1 dumps the dense Jacobian each LM iteration
     (the reference's `dbg-jac` cargo feature, solver.rs:370-439)."""
     code = (
-        "import os; os.environ['EZPZ_TPU_DBG_JAC'] = '1'\n"
+        "import os; os.environ['EZPZ_DBG_JAC'] = '1'\n"
         "import jax; jax.config.update('jax_platforms', 'cpu')\n"
-        "import ezpz_tpu as ez\n"
+        "import ezpz_jax as ez\n"
         "ids = ez.IdGenerator()\n"
         "p = ez.DatumPoint.new(ids); q = ez.DatumPoint.new(ids)\n"
         "reqs = [ez.ConstraintRequest.highest_priority(c) for c in [\n"

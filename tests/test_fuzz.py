@@ -15,9 +15,9 @@ import os
 import pytest
 from hypothesis import example, given, settings, strategies as st
 
-import ezpz_tpu as ez
-from ezpz_tpu.constraints import Constraint, ConstraintRequest
-from ezpz_tpu.datatypes import (
+import ezpz_jax as ez
+from ezpz_jax.constraints import Constraint, ConstraintRequest
+from ezpz_jax.datatypes import (
     Angle,
     AngleKind,
     DatumCircle,
@@ -125,7 +125,7 @@ _ARC0 = DatumCircularArc(center=_P0, start=_P0, end=_P0)  # fully collapsed
 
 
 # `just fuzz` raises the example count for long randomized runs.
-@settings(max_examples=int(os.environ.get("EZPZ_TPU_FUZZ_EXAMPLES", "20")), deadline=None)
+@settings(max_examples=int(os.environ.get("EZPZ_FUZZ_EXAMPLES", "20")), deadline=None)
 @given(
     cs=st.lists(constraints(), min_size=0, max_size=4),
     guesses=st.lists(vals, min_size=N_VARS, max_size=N_VARS),

@@ -353,7 +353,7 @@ def test_mixed_entity_layout_and_extraction():
     extraction base offsets — with a single circle or no arcs, a wrong
     stride or a sign-flipped offset is self-consistently invisible
     (mutation-found)."""
-    from ezpz_tpu.textual import Problem
+    from ezpz_jax.textual import Problem
 
     txt = """# constraints
 point p

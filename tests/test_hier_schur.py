@@ -6,10 +6,10 @@ import pytest
 
 import jax
 
-import ezpz_tpu  # noqa: F401
-from ezpz_tpu.constraints import Constraint
-from ezpz_tpu.datatypes import DatumPoint
-from ezpz_tpu.parallel import BlockSchurSolver, ShardedBlockSchurSolver
+import ezpz_jax  # noqa: F401
+from ezpz_jax.constraints import Constraint
+from ezpz_jax.datatypes import DatumPoint
+from ezpz_jax.parallel import BlockSchurSolver, ShardedBlockSchurSolver
 
 
 def _need_devices(n=8):
@@ -25,7 +25,7 @@ def _coupled_chain(lines):
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
     from gen_massive import generate_coupled
 
-    from ezpz_tpu.textual import Problem
+    from ezpz_jax.textual import Problem
 
     cs = Problem.from_str(generate_coupled(lines)).to_constraint_system()
     constraints = [r.constraint for r in cs.constraints]
@@ -42,7 +42,7 @@ def _hub(lines, cluster=10):
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
     from gen_massive import generate_coupled_hub
 
-    from ezpz_tpu.textual import Problem
+    from ezpz_jax.textual import Problem
 
     cs = Problem.from_str(
         generate_coupled_hub(lines, cluster)).to_constraint_system()

@@ -1,11 +1,11 @@
 """Medium tier of ``ops/linalg.py`` (24 < n): parity against numpy/XLA
 factorizations, failure semantics, dtypes, batching — for BOTH the default
 XLA-cholesky routing of ``spd_solve`` and the opt-in hand-blocked kernel
-(``_blocked_spd_solve``; kept parity-tested even though measurement routed
-the default to XLA — see the module docstring's v5e table).
+(``_blocked_spd_solve``; kept parity-tested although the default routes
+to XLA).
 
 This tier replaces the reference's sparse LLT for medium coupled systems
-(``ezpz/src/solver/newton.rs:87-102``): dense MXU work instead of sparse
+(``ezpz/src/solver/newton.rs:87-102``): dense matmul work instead of sparse
 scalar bookkeeping.
 """
 
@@ -14,8 +14,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import ezpz_tpu  # noqa: F401  (x64 on)
-from ezpz_tpu.ops.linalg import (
+import ezpz_jax  # noqa: F401  (x64 on)
+from ezpz_jax.ops.linalg import (
     BLOCK_NB,
     UNROLL_MAX_N,
     _blocked_spd_solve,
@@ -43,7 +43,7 @@ def test_blocked_solve_matches_numpy(n):
 
 def test_blocked_factor_matches_xla_cholesky():
     """The factor itself (not just the solve) agrees with XLA's cholesky —
-    the parity check VERDICT.md asked for on the new kernel."""
+    a parity check on the factor, not only on the solve."""
     rng = np.random.default_rng(7)
     n = 96  # multiple of BLOCK_NB: no padding in the comparison
     assert n % BLOCK_NB == 0
@@ -133,7 +133,7 @@ def test_blocked_mixed_batch_one_failure():
 def test_batched_colunroll_tier_matches_numpy(n):
     """spd_solve_batched's mid-size tier (column-unrolled, for vmapped
     contexts): parity, batching, and failure semantics."""
-    from ezpz_tpu.ops.linalg import spd_solve_batched, spd_solve_multi_batched
+    from ezpz_jax.ops.linalg import spd_solve_batched, spd_solve_multi_batched
 
     rng = np.random.default_rng(n)
     B = 5

@@ -10,7 +10,7 @@ mixed case explicitly — which the reference's own test corpus never does.
 
 import math
 
-from ezpz_tpu.textual import Problem
+from ezpz_jax.textual import Problem
 
 PROBLEM = """\
 # constraints

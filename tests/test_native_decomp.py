@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from ezpz_tpu.models.blocks import (
+from ezpz_jax.models.blocks import (
     _component_roots_native,
     _component_roots_python,
     connected_components,
 )
-from ezpz_tpu.native import load_fastdecomp
+from ezpz_jax.native import load_fastdecomp
 
 
 def _random_deps(rng, n_cons, n_vars):
@@ -63,7 +63,7 @@ def test_native_rejects_bad_ids():
 
 
 def test_empty_and_isolated_constraints():
-    from ezpz_tpu.constraints import Constraint
+    from ezpz_jax.constraints import Constraint
 
     # Two isolated Fixed constraints and one shared pair.
     cs = [

@@ -6,8 +6,8 @@ import os
 
 import pytest
 
-from ezpz_tpu.native import load_fastparse
-from ezpz_tpu.textual.parser import ParseError, _parse_problem_py, _problem_from_native
+from ezpz_jax.native import load_fastparse
+from ezpz_jax.textual.parser import ParseError, _parse_problem_py, _problem_from_native
 
 from .helpers import CASES_DIR
 

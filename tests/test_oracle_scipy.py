@@ -13,10 +13,10 @@ import numpy as np
 import pytest
 from scipy.optimize import least_squares
 
-import ezpz_tpu as ez
-from ezpz_tpu.constraints import Constraint, ConstraintRequest
-from ezpz_tpu.datatypes import DatumLineSegment, DatumPoint
-from ezpz_tpu.models.compiled import compile_system
+import ezpz_jax as ez
+from ezpz_jax.constraints import Constraint, ConstraintRequest
+from ezpz_jax.datatypes import DatumLineSegment, DatumPoint
+from ezpz_jax.models.compiled import compile_system
 
 RNG = np.random.default_rng(424242)
 
@@ -124,8 +124,8 @@ def test_weighted_inconsistent_matches_scipy():
     least-squares minimizer is v = 9/10 — scipy agrees; a solver that
     divides the Jacobian by the weight instead lands at v = 1/10."""
     import jax.numpy as jnp
-    from ezpz_tpu.config import Config
-    from ezpz_tpu.solver import solve_lm
+    from ezpz_jax.config import Config
+    from ezpz_jax.solver import solve_lm
 
     cs = [Constraint.Fixed(0, 0.0), Constraint.Fixed(0, 1.0)]
     system = compile_system(cs, 1, weights=[1.0, 3.0])
@@ -142,7 +142,7 @@ def test_weighted_inconsistent_matches_scipy():
     # And the matrix-free path (solve_lm_cg via jacobian_factors) weights
     # its per-block Jacobians identically — an unweighted Jt r would pull
     # the minimizer to 0.5 instead of 0.9.
-    from ezpz_tpu.solver import solve_lm_cg
+    from ezpz_jax.solver import solve_lm_cg
     out_cg = solve_lm_cg(system, jnp.array([0.4]), c.max_iterations,
                          c.residual_tolerance, c.step_tolerance,
                          c.initial_lambda)
@@ -191,7 +191,7 @@ def test_zero_weight_constraint_uses_exact_satisfaction():
     be reported unsatisfied — and the weighted residual itself must carry
     w * res (here [0, 3], not [0, 1/3])."""
     import jax.numpy as jnp
-    from ezpz_tpu.constraints import ConstraintRequest
+    from ezpz_jax.constraints import ConstraintRequest
 
     reqs = [
         ConstraintRequest.highest_priority(Constraint.Fixed(0, 0.5)),

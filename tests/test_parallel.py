@@ -9,13 +9,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import ezpz_tpu as ez
-from ezpz_tpu.batch import BatchSolver
-from ezpz_tpu.config import Config
-from ezpz_tpu.constraints import Constraint
-from ezpz_tpu.datatypes import DatumPoint
-from ezpz_tpu.models.compiled import compile_system
-from ezpz_tpu.parallel import FleetSolver, ShardedSchurSolver
+import ezpz_jax as ez
+from ezpz_jax.batch import BatchSolver
+from ezpz_jax.config import Config
+from ezpz_jax.constraints import Constraint
+from ezpz_jax.datatypes import DatumPoint
+from ezpz_jax.models.compiled import compile_system
+from ezpz_jax.parallel import FleetSolver, ShardedSchurSolver
 
 
 def _need_devices(n=8):
@@ -58,8 +58,8 @@ def test_fleet_solver_matches_batch():
 def test_fleet_solver_mixed_matches_batch():
     """FleetSolver(precision='mixed') shards BatchSolver's OWN vmapped
     mixed-precision callable: results are bit-identical to the local
-    solver (VERDICT r2: the fastest path and the multi-chip path must not
-    be disjoint)."""
+    solver (the mixed path and the multi-device path must not be
+    disjoint)."""
     _need_devices()
     system, _ = _distance_system()
     rng = np.random.default_rng(5)
@@ -82,51 +82,6 @@ def test_fleet_solver_mixed_matches_batch():
         np.asarray(res_fleet.iterations), np.asarray(res_local.iterations))
     assert bool(np.asarray(res_fleet.converged).all())
     assert bool(np.asarray(res_fleet.satisfied).all())
-
-
-def test_fleet_solver_fused_matches_batch_per_shard():
-    """The fused Pallas path under shard_map: each device runs the same
-    kernel BatchSolver runs on its own shard — per-shard results are
-    bit-identical to a local BatchSolver solving that shard. (2-device
-    mesh keeps the CPU interpret-mode cost down.)"""
-    from jax.sharding import Mesh
-
-    from tests.test_unrolled_pallas import _mixed_system
-
-    _need_devices(2)
-    system = _mixed_system()
-    D = 2
-    B = D * 1024  # one kernel tile per device
-    rng = np.random.default_rng(6)
-    base = np.array([0.3, 0.1, 0.2, 3.3, 0.25, 3.2, 1.1])
-    x0 = np.tile(base, (B, 1)) + rng.normal(0, 0.02, (B, 7))
-    pars = tuple(
-        jnp.asarray(np.tile(np.asarray(b.par), (B, 1, 1)))
-        for b in system.blocks
-    )
-
-    mesh = Mesh(np.array(jax.devices()[:D]), ("batch",))
-    fleet = FleetSolver(system, mesh=mesh, batch_params=True,
-                        precision="mixed", pallas_fused=True)
-    out = fleet.solve(jnp.asarray(x0), pars)
-    assert fleet._fused_fleet_runs[B] is not None  # fused path, no fallback
-    assert bool(np.asarray(out.converged).all())
-    assert bool(np.asarray(out.satisfied).all())
-
-    local = BatchSolver(system, Config(), batch_params=True,
-                        precision="mixed", pallas_fused=True)
-    for s in range(D):
-        sl = slice(s * 1024, (s + 1) * 1024)
-        ref = local.solve(jnp.asarray(x0[sl]),
-                          tuple(p[sl] for p in pars))
-        # Same kernel, same shard data; XLA may contract FMAs differently
-        # between the shard_map-wrapped and local executables, perturbing
-        # the double-single arithmetic at ~1e-13 — so equivalence is
-        # asserted at DS precision, with iteration counts exactly equal.
-        np.testing.assert_allclose(
-            np.asarray(out.x[sl]), np.asarray(ref.x), rtol=0, atol=1e-10)
-        np.testing.assert_array_equal(
-            np.asarray(out.iterations[sl]), np.asarray(ref.iterations))
 
 
 def _coupled_chain_problem(n_blocks=8, pts_per_block=4):

@@ -17,9 +17,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import ezpz_tpu as ez
-from ezpz_tpu.constraints import Constraint, ConstraintRequest
-from ezpz_tpu.datatypes import (
+import ezpz_jax as ez
+from ezpz_jax.constraints import Constraint, ConstraintRequest
+from ezpz_jax.datatypes import (
     Angle,
     AngleKind,
     DatumCircle,
@@ -28,7 +28,7 @@ from ezpz_tpu.datatypes import (
     DatumLineSegment,
     DatumPoint,
 )
-from ezpz_tpu.ops.kernels import KERNELS
+from ezpz_jax.ops.kernels import KERNELS
 
 RNG = np.random.default_rng(12345)
 

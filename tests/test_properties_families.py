@@ -12,9 +12,9 @@ import math
 
 import numpy as np
 
-import ezpz_tpu as ez
-from ezpz_tpu.constraints import Constraint, ConstraintRequest
-from ezpz_tpu.datatypes import (
+import ezpz_jax as ez
+from ezpz_jax.constraints import Constraint, ConstraintRequest
+from ezpz_jax.datatypes import (
     DatumCircle,
     DatumCircularArc,
     DatumDistance,
@@ -260,7 +260,7 @@ def test_circle_tangency_interior_family():
     equals ||r0|-|r1|| (constraints.rs:545-564 interior arm — found
     untested by a tools/mutate.py run: mutating |ra-rb| to |ra+rb|
     survived the suite)."""
-    from ezpz_tpu.constraints import CircleSide
+    from ezpz_jax.constraints import CircleSide
 
     c0 = DatumCircle(center=DatumPoint(0, 1), radius=DatumDistance(2))
     c1 = DatumCircle(center=DatumPoint(3, 4), radius=DatumDistance(5))
@@ -313,7 +313,7 @@ def test_line_tangent_circle_slanted_values():
     between the terms is invisible (mutation-found). 3-4-5 geometry gives
     exact analytic residuals."""
     import jax.numpy as jnp
-    from ezpz_tpu.ops.kernels import k_line_tangent_circle
+    from ezpz_jax.ops.kernels import k_line_tangent_circle
 
     # Line (0,0)-(3,4): |u| = 5. Center (0,5): cross(u, c-p0) = 15,
     # signed distance 3. side=+1, r=2 -> residual 1; r=3 -> tangent (0).
@@ -336,7 +336,7 @@ def test_symmetric_degenerate_branch_values():
     only other cover is the DS parity test, outside this file's mutation
     selection."""
     import jax.numpy as jnp
-    from ezpz_tpu.ops.kernels import k_symmetric
+    from ezpz_jax.ops.kernels import k_symmetric
 
     # Mirror endpoints nearly coincide: r = |q-p|^2 = 2.5e-3, r^2 < 1e-4
     # -> degenerate, but r != 0 so the raw value divides by the TRUE r.
@@ -361,7 +361,7 @@ def test_circle_tangent_circle_degeneracy_boundary_is_inclusive():
     closedness (mutation-found boundary)."""
     import jax.numpy as jnp
 
-    from ezpz_tpu.ops.kernels import k_circle_tangent_circle
+    from ezpz_jax.ops.kernels import k_circle_tangent_circle
 
     dx = float(np.sqrt(np.float64(1e-8)))
     assert dx * dx == 1e-8
@@ -379,7 +379,7 @@ def test_symmetric_degeneracy_boundary_is_exclusive():
     must stay False at the tie (mutation-found boundary)."""
     import jax.numpy as jnp
 
-    from ezpz_tpu.ops.kernels import EPSILON, k_symmetric
+    from ezpz_jax.ops.kernels import EPSILON, k_symmetric
 
     dx, dy = 0.07806247497997998, 0.0625
     r = np.float64(dx) * dx + np.float64(dy) * dy

@@ -9,7 +9,7 @@ import os
 import numpy as np
 import pytest
 
-from ezpz_tpu import residual_viz as rv
+from ezpz_jax import residual_viz as rv
 
 BASELINE_DIR = os.path.join(os.path.dirname(__file__), "residual_viz_baselines")
 SCORE = 0.99

@@ -1,5 +1,5 @@
 """Distributed (matrix-free CG) boundary solve for ShardedSchurSolver and
-the large-boundary stress case VERDICT.md asked for: a 2-D grid sketch
+the large-boundary stress case: a 2-D grid sketch
 where the boundary is as large as (or larger than) the interior — the
 regime where a replicated dense (n_b, n_b) Schur solve stops scaling.
 """
@@ -10,13 +10,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import ezpz_tpu as ez
-from ezpz_tpu.config import Config
-from ezpz_tpu.constraints import Constraint
-from ezpz_tpu.datatypes import DatumPoint
-from ezpz_tpu.models.compiled import compile_system
-from ezpz_tpu.parallel import ShardedSchurSolver
-from ezpz_tpu.solver import solve_lm
+import ezpz_jax as ez
+from ezpz_jax.config import Config
+from ezpz_jax.constraints import Constraint
+from ezpz_jax.datatypes import DatumPoint
+from ezpz_jax.models.compiled import compile_system
+from ezpz_jax.parallel import ShardedSchurSolver
+from ezpz_jax.solver import solve_lm
 
 from .test_parallel import _coupled_chain_problem
 

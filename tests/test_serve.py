@@ -8,7 +8,7 @@ import urllib.request
 
 import pytest
 
-from ezpz_tpu import serve
+from ezpz_jax import serve
 
 from .helpers import CASES_DIR
 
@@ -64,9 +64,9 @@ def test_service_batches_concurrent_same_topology():
 
 
 def test_service_mixed_precision():
-    """precision='mixed' (the TPU default via 'auto') serves the same
+    """precision='mixed' (an explicit choice; 'auto' is f64) serves the same
     solutions at the f64-verified tolerance."""
-    from ezpz_tpu.serve import SolverService
+    from ezpz_jax.serve import SolverService
 
     svc = SolverService(batch_window_ms=1.0, precision="mixed")
     try:
@@ -80,74 +80,6 @@ def test_service_mixed_precision():
         assert out["iterations_comparable"] is False
     finally:
         svc.shutdown()
-
-
-def test_service_fused_auto_rule_and_forced_path():
-    """pallas_fused=None auto-enables the fused kernel only on real TPU
-    backends (interpret mode would be far too slow to serve) — on this
-    CPU-backed suite it must resolve False. Forcing it True must serve
-    correct answers through the fused kernel (interpret), with stragglers
-    finished at the full XLA budget."""
-    from ezpz_tpu.serve import SolverService
-
-    svc = SolverService(batch_window_ms=1.0, precision="mixed")
-    try:
-        assert svc.pallas_fused is False  # CPU backend -> auto off
-    finally:
-        svc.shutdown()
-
-    svc = SolverService(batch_window_ms=1.0, precision="mixed",
-                        pallas_fused=True)
-    try:
-        out = svc.solve_text(_txt("tiny"))
-        assert out["converged"]
-        assert not out["unsatisfied"]
-        assert out["precision"] == "mixed"
-        # the group's solver really is the fused configuration
-        (batch_solver, _system), = svc._solvers.values()
-        assert batch_solver.pallas_fused
-        assert any(v is not None for v in batch_solver._fused_runs.values())
-    finally:
-        svc.shutdown()
-
-
-def test_block_solver_fused_path_matches_f64():
-    """BlockSolver(pallas_fused=True): per-bucket fused kernels (padded to
-    the tile unit) must reproduce the f64 decomposed solve on a
-    multi-component sketch."""
-    import numpy as np
-
-    from ezpz_tpu.config import Config
-    from ezpz_tpu.constraints import Constraint
-    from ezpz_tpu.datatypes import DatumLineSegment, DatumPoint
-    from ezpz_tpu.models.blocks import BlockSolver
-
-    # three independent vertical-line components (the massive fixture's
-    # unit), 4 vars each
-    cons, x0 = [], []
-    for k in range(3):
-        p = DatumPoint(4 * k, 4 * k + 1)
-        q = DatumPoint(4 * k + 2, 4 * k + 3)
-        cons += [
-            Constraint.Vertical(DatumLineSegment(p, q)),
-            Constraint.Fixed(p.x_id, float(k)),
-            Constraint.Fixed(p.y_id, 0.0),
-            Constraint.Fixed(q.y_id, 4.0),
-        ]
-        x0 += [k + 0.3, -0.2, k + 0.8, 3.1]
-    x0 = np.asarray(x0)
-
-    ref = BlockSolver(cons, len(x0), config=Config()).solve(x0)
-    fused = BlockSolver(cons, len(x0), config=Config(), precision="mixed",
-                        pallas_fused=True)
-    out = fused.solve(x0)
-    assert any(
-        any(v is not None for v in s._fused_runs.values())
-        for s in fused._solvers
-    )
-    assert out.converged
-    assert out.satisfied.all()
-    np.testing.assert_allclose(out.x, ref.x, atol=1e-8)
 
 
 def test_service_per_request_precision_override():
@@ -181,7 +113,7 @@ def test_http_server_roundtrip():
     and the 400 error body for an unparseable problem."""
     from http.server import ThreadingHTTPServer
 
-    import ezpz_tpu.serve as sv
+    import ezpz_jax.serve as sv
 
     service = sv.SolverService()
     server = ThreadingHTTPServer(("127.0.0.1", 0), sv.make_handler(service))

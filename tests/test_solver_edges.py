@@ -3,13 +3,13 @@
 import numpy as np
 import jax.numpy as jnp
 
-import ezpz_tpu  # noqa: F401
-from ezpz_tpu.config import Config
-from ezpz_tpu.constraints import Constraint
-from ezpz_tpu.datatypes import DatumLineSegment, DatumPoint
-from ezpz_tpu.models.compiled import compile_system
-from ezpz_tpu.ops.kernels import KERNELS
-from ezpz_tpu.solver import solve_gauss_newton, solve_lm
+import ezpz_jax  # noqa: F401
+from ezpz_jax.config import Config
+from ezpz_jax.constraints import Constraint
+from ezpz_jax.datatypes import DatumLineSegment, DatumPoint
+from ezpz_jax.models.compiled import compile_system
+from ezpz_jax.ops.kernels import KERNELS
+from ezpz_jax.solver import solve_gauss_newton, solve_lm
 
 
 def test_budget_boundary_reports_unconverged():
@@ -103,8 +103,8 @@ def test_damping_floor_rescue_adds_positive_shift():
     A sign flip on the shift leaves the retry indefinite too, turning a
     rescuable lane into a hard failure (mutation-found: the rescue branch
     was only ever exercised where the raw solve already succeeded)."""
-    from ezpz_tpu.ops.linalg import spd_solve
-    from ezpz_tpu.solver import damped_spd_solve
+    from ezpz_jax.ops.linalg import spd_solve
+    from ezpz_jax.solver import damped_spd_solve
 
     a, o = np.float32(1.0), np.float32(1.0 + 1e-7)
     jtj = jnp.asarray([[a, o], [o, a]], jnp.float32)
@@ -149,13 +149,13 @@ def test_gauss_newton_residual_check_is_inclusive():
 
 def test_mixed_phase_defaults_are_pinned():
     """The documented mixed-path phase budgets and coarse target
-    (solver.py docstrings; TUNING.md measured operating point). These are
+    (solver.py docstrings). These are
     performance knobs whose mutations are outcome-invisible on converging
     fixtures (the f64 refine phase rescues any coarse point), so the
     contract is pinned structurally."""
     import inspect
 
-    from ezpz_tpu.solver import solve_lm_mixed, solve_lm_refine
+    from ezpz_jax.solver import solve_lm_mixed, solve_lm_refine
 
     pm = inspect.signature(solve_lm_mixed).parameters
     assert pm["coarse_tolerance"].default == 5e-6
@@ -188,7 +188,7 @@ def test_gauss_newton_budget_is_strict():
     reports converged=False — an inclusive bound would sneak in a second
     iteration whose top-of-loop residual check then reports converged
     (mutation-found)."""
-    from ezpz_tpu.solver import damped_spd_solve
+    from ezpz_jax.solver import damped_spd_solve
 
     p, q = DatumPoint(0, 1), DatumPoint(2, 3)
     c = [Constraint.Fixed(0, 0.0), Constraint.Fixed(1, 0.0),
@@ -208,7 +208,7 @@ def test_init_state_lambda_dtype_contract():
     """_init_state honours lam_dtype (solve_lm_refine carries its lambda
     in the f32 working dtype while the system is f64); None falls back to
     the system dtype (mutation-found: `lam_dtype or dtype`)."""
-    from ezpz_tpu.solver import _init_state
+    from ezpz_jax.solver import _init_state
 
     c = [Constraint.Fixed(0, 3.0)]
     system = compile_system(c, n_vars=1)

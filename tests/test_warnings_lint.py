@@ -4,9 +4,9 @@ found untested by a tools/mutate.py run: 180/360/+-90 constants and the
 nearly_eq comparison all survived mutation.)
 """
 
-from ezpz_tpu.constraints import Constraint
-from ezpz_tpu.datatypes import Angle, AngleKind, DatumLineSegment, DatumPoint
-from ezpz_tpu.utils.warnings import EPSILON, Warning, WarningKind, lint
+from ezpz_jax.constraints import Constraint
+from ezpz_jax.datatypes import Angle, AngleKind, DatumLineSegment, DatumPoint
+from ezpz_jax.utils.warnings import EPSILON, Warning, WarningKind, lint
 
 
 def _lines_at(deg: float) -> Constraint:

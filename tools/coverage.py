@@ -5,7 +5,7 @@ No coverage package ships in this image, so this uses Python 3.12's
 ``sys.monitoring`` (PEP 669: near-zero-overhead line events) directly:
 
 * arm LINE events for every code object whose file lives under
-  ``ezpz_tpu/``;
+  ``ezpz_jax/``;
 * run pytest in-process with the given arguments;
 * compare the executed line set against each file's executable lines
   (collected from ``co_lines()`` over the compiled module, nested code
@@ -36,7 +36,7 @@ import os
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PKG = os.path.join(HERE, "ezpz_tpu")
+PKG = os.path.join(HERE, "ezpz_jax")
 
 TOOL = 2  # sys.monitoring tool id (COVERAGE_ID is 1; avoid clashing)
 

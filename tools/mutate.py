@@ -13,8 +13,8 @@ this is a small, self-contained mutant generator + runner:
 * Report a kill rate and list every surviving mutant with its diff line.
 
 Usage:
-    python tools/mutate.py ezpz_tpu/solver.py -- tests/test_solver_edges.py
-    python tools/mutate.py ezpz_tpu/ops/kernels.py --sample 40 -- \
+    python tools/mutate.py ezpz_jax/solver.py -- tests/test_solver_edges.py
+    python tools/mutate.py ezpz_jax/ops/kernels.py --sample 40 -- \
         tests/test_properties.py -k jacobian
 
 Notes: runs are sequential (single host core) and each mutant pays cold
